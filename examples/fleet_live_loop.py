@@ -10,7 +10,7 @@ loop ticks, exactly the dual-rate split a deployment would run.
 
 Run from the repo root:
 
-    python examples/fleet_live_loop.py                  # TPU if available
+    python examples/fleet_live_loop.py                  # GPU if available
     JAX_PLATFORM_NAME=cpu python examples/fleet_live_loop.py
 """
 
@@ -67,7 +67,7 @@ def main() -> int:
         fleet_size=FLEET,
         config=MCLConfig(
             max_particles=1024,
-            raycast_method="lut",  # swap to "lut_pallas" on TPU
+            raycast_method="lut",  # swap to "lut_pallas" on a GPU
             angle_step=1,
             timer_frequency=50.0,
             async_correction=True,

@@ -8,7 +8,7 @@ to each particle block by the kernel's BlockSpec index map.
 
 Run from the repo root:
 
-    python examples/fleet_racing.py                 # TPU if available
+    python examples/fleet_racing.py                 # GPU if available
     JAX_PLATFORM_NAME=cpu python examples/fleet_racing.py
 """
 

@@ -2,7 +2,7 @@
 
 Run from the repo root (or after `pip install -e .`):
 
-    python examples/localize_on_map.py                 # TPU if available
+    python examples/localize_on_map.py                 # GPU if available
     JAX_PLATFORM_NAME=cpu python examples/localize_on_map.py
 
 Loads the recorded real-sensor SLAM map the reference ships, synthesizes a

@@ -1,4 +1,4 @@
-"""ROS2 launch file — the reference 5-process topology, TPU-native.
+"""ROS2 launch file — the reference 5-process topology around this engine.
 
 The reference brings up five processes (reference
 launch/mcl_launch.py:60-147): nav2 ``map_server`` + ``lifecycle_manager``
@@ -6,7 +6,7 @@ serving the map, a static base_link->laser TF (x = 0.288 =
 ``lidar_offset_x``), the particle-filter node (started 2 s delayed so the
 map service is up), and optional RViz.
 
-The TPU engine's bridge loads the map itself and republishes ``/map``
+The engine's bridge loads the map itself and republishes ``/map``
 latched (runtime/ros2_bridge.py — the reference's one-shot GetMap service
 hop is a design translation, SURVEY §3.1), so the nav2 pair is not
 needed; this launch composes the remaining topology 1:1:

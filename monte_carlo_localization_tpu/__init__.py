@@ -1,8 +1,8 @@
-"""tpu-mcl — a TPU-native Monte Carlo Localization engine.
+"""tpu-mcl — an accelerator-native Monte Carlo Localization engine.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the F1TENTH
 ``particle_filter_cpp`` reference (AE-HYU/monte_carlo_localization), designed
-TPU-first rather than ported:
+for an accelerator rather than ported:
 
 * the full MCL correction (resample -> motion -> sensor likelihood -> pose
   estimate) is ONE fused jitted step — a single device dispatch,
@@ -19,7 +19,7 @@ TPU-first rather than ported:
 The dual-rate architecture of the reference is preserved: high-rate odometry
 dead-reckoning with delay compensation runs on host
 (:mod:`monte_carlo_localization_tpu.runtime`) while the MCL correction runs
-as one TPU step (:mod:`monte_carlo_localization_tpu.filter`).
+as one device step (:mod:`monte_carlo_localization_tpu.filter`).
 """
 
 from monte_carlo_localization_tpu.config import MCLConfig, load_config

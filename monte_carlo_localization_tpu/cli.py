@@ -431,8 +431,7 @@ def build_parser() -> argparse.ArgumentParser:
     lv.add_argument("--async-correction", action="store_true",
                     dest="async_correction",
                     help="pipeline corrections: dispatch without blocking, "
-                    "harvest poses as the device finishes (~2x the live "
-                    "rate on remote-attached accelerators)")
+                    "harvest poses as the device finishes")
     lv.add_argument("--live-chunk", type=int, default=None, dest="live_chunk",
                     help="with --async-correction: buffer K ticks and "
                     "dispatch them as one step_many(K) — amortizes the "
@@ -501,15 +500,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    # persist XLA/Mosaic compiles across CLI invocations (big-map LUT
-    # builder programs cold-compile for minutes; see bench.py which does
-    # the same for its child runs)
-    import os
-
-    os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        str(Path.home() / ".cache" / "jax_comp"),
+    # persist compiles across CLI invocations (big-map LUT builder
+    # programs take a while to compile cold)
+    from monte_carlo_localization_tpu.utils.compile_cache import (
+        enable_compile_cache,
     )
+
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

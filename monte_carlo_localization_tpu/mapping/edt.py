@@ -1,6 +1,6 @@
 """Exact 2D Euclidean distance transform (EDT).
 
-The EDT is the TPU-native replacement for the reference's per-cell DDA ray
+The EDT is the accelerator-side replacement for the reference's per-cell DDA ray
 march (reference src/particle_filter.cpp:611-650): with the distance to the
 nearest obstacle known at every cell, a ray can *sphere march* — advance by
 the full clearance each iteration — converging in ~O(log) steps instead of

@@ -1,16 +1,15 @@
-"""Angle-quantized precomputed range LUT — the TPU production ray "cast".
+"""Angle-quantized precomputed range LUT — the production ray "cast".
 
 The reference's hot loop marches every ray cell-by-cell at query time
 (O(max_range_px) grid reads per ray, reference src/particle_filter.cpp:
-611-650, 28.8M reads per update at defaults). On TPU, scattered reads are
-the scarce resource (~10^8 gathers/s on v5e regardless of table size), so
-the engine inverts the cost: ranges for EVERY (cell, quantized-angle) pair
-are precomputed once per map, and a query becomes ONE u8 gather —
-48x fewer memory touches than sphere marching, ~240x fewer than DDA.
+611-650, 28.8M reads per update at defaults). The engine inverts the
+cost: ranges for EVERY (cell, quantized-angle) pair are precomputed once
+per map, and a query becomes ONE u8 read — 48x fewer memory touches than
+sphere marching, ~240x fewer than DDA.
 
 This is the RangeLibc "pre-computed LUT" idea the reference's vestigial
 ``rangelib_variant``/``theta_discretization`` keys allude to
-(config/mcl_config.yaml:34-36), rebuilt TPU-first.
+(config/mcl_config.yaml:34-36).
 
 Precompute uses shear-scan dynamic programming (native C++/OpenMP, numpy
 fallback): for angle theta, shearing each grid line by the ray's per-line
@@ -32,13 +31,14 @@ from pathlib import Path
 import numpy as np
 
 DEFAULT_THETA_BINS = 1440  # 0.25 deg — matches a 1080-beam 270-deg lidar
+DEFAULT_LUT_CACHE = Path(__file__).resolve().parents[2] / ".lut_cache"
 
 
 def lut_dtype(max_range_px: int) -> np.dtype:
     """u8 up to 254 px (the common case, half the memory), u16 beyond —
-    long-range or fine-resolution maps. The XLA ``lut`` query path is
-    dtype-agnostic; the Pallas kernel packs 512 u8 or 256 u16 ranges per
-    512 B DMA subrow (ops.pallas_lut.entries_per_subrow)."""
+    long-range or fine-resolution maps. Both query paths are
+    dtype-agnostic; rows are stored in 512 B tiles of 512 u8 or 256 u16
+    ranges (ops.pallas_lut.entries_per_subrow)."""
     if max_range_px <= 254:
         return np.dtype(np.uint8)
     if max_range_px <= 65534:
@@ -158,10 +158,11 @@ def cached_range_lut(
     backend: str = "auto",
     row_stride: int = 0,
 ) -> np.ndarray:
-    """build_range_lut with a per-map on-disk cache (npy, mmap-loaded)."""
+    """build_range_lut with a per-map on-disk cache (npy, mmap-loaded) in
+    ``cache_dir``, else ``$MCL_LUT_CACHE``, else ``.lut_cache/`` at the
+    repository root."""
     cache_dir = Path(
-        cache_dir
-        or os.environ.get("MCL_LUT_CACHE", Path.home() / ".cache" / "tpu_mcl")
+        cache_dir or os.environ.get("MCL_LUT_CACHE") or DEFAULT_LUT_CACHE
     )
     cache_dir.mkdir(parents=True, exist_ok=True)
     path = cache_dir / (

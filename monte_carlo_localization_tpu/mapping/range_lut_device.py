@@ -1,8 +1,8 @@
 """On-device (JAX) range-LUT builder.
 
 Device-side twin of the C++ shear-scan DP in mapping/range_lut.py: ranges
-for every (cell, theta-bin) pair via one backward sweep per angle. On TPU
-this avoids building the multi-hundred-MB LUT on host and shipping it over
+for every (cell, theta-bin) pair via one backward sweep per angle. On the
+device this avoids building the multi-hundred-MB LUT on host and shipping it over
 PCIe — the occupancy grid (H*W bytes) is the only upload.
 
 Vectorization: bins are grouped by (driving axis, sweep direction) into
@@ -80,10 +80,9 @@ def _sweep_group(occ_p: jnp.ndarray, rel: np.ndarray, step_len: np.ndarray,
 def _group_bins_padded(t_bins: int, row_stride: int):
     """Like _group_bins but over ``row_stride`` physical bins where physical
     bin b carries the angle of logical bin ``b % t_bins`` (the wraparound
-    padding the Pallas query kernel needs). Building the duplicates inside
+    padding the lut_pallas query needs). Building the duplicates inside
     the same sweep costs ~stride/T extra compute but avoids a separate
-    giant pad/gather program (which cold-compiles pathologically slowly on
-    the remote-compile backend)."""
+    giant pad/gather program over the whole LUT."""
     thetas = 2.0 * np.pi * (np.arange(row_stride) % t_bins) / t_bins
     c, s = np.cos(thetas), np.sin(thetas)
     row_major = np.abs(s) >= np.abs(c)

@@ -1,7 +1,7 @@
 """Synthetic test worlds.
 
 The reference validates only against shipped map assets (reference maps/);
-the TPU engine additionally generates parametric worlds so tests and
+this engine additionally generates parametric worlds so tests and
 benchmarks are self-contained and oracle-checkable.
 """
 

@@ -139,8 +139,7 @@ class SensorModel:
           expected_m: (..., R) ray-cast ranges in meters per particle.
           mode: "table" gathers from the precomputed LUT (bit-faithful to the
             reference); "analytic" evaluates the same normalized mixture in
-            closed form — zero gathers, pure VPU math, the TPU-native path
-            (XLA gathers cap at ~10^8/s on v5e; elementwise math is ~free).
+            closed form — zero table gathers, elementwise math only.
         Returns:
           (...,) log weights: inv_squash * sum_j log P(obs_j | exp_.j).
         """

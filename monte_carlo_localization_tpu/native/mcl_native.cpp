@@ -1,7 +1,7 @@
 // ============================================================================
-// mcl_native — host-side native kernels for the TPU MCL engine.
+// mcl_native — host-side native kernels for the MCL engine.
 //
-// The TPU compute path is JAX/XLA; this library covers the host runtime:
+// The device compute path is JAX/XLA; this library covers the host runtime:
 //   * exact 2-D Euclidean distance transform (Felzenszwalb/Huttenlocher),
 //     used at map-load time to build the sphere-marching clearance field,
 //   * an OpenMP batch DDA ray caster, the native correctness oracle and

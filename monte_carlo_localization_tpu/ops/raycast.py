@@ -1,6 +1,6 @@
 """Batched grid ray casting — the hot op.
 
-Two interchangeable backends behind one contract (the TPU rebuild of the
+Interchangeable backends behind one contract (the accelerator rebuild of the
 reference's ``calc_range_many`` / ``cast_ray``,
 reference src/particle_filter.cpp:586-650):
 

@@ -1,7 +1,7 @@
 """Resampling primitives (device-side, O(N), fully vectorized).
 
 The reference uses multinomial resampling via std::discrete_distribution
-(reference src/particle_filter.cpp:657-665). The TPU engine defaults to
+(reference src/particle_filter.cpp:657-665). The engine defaults to
 low-variance systematic resampling (cumsum + a gather-free scatter/cummax
 CDF inversion instead of N sequential draws) and keeps multinomial as a
 compatibility mode. Both operate on LOG weights, normalized internally.
@@ -32,9 +32,10 @@ def systematic_resample_indices(
 
     One uniform offset u0 ~ U[0,1); target position (i + u0)/M for output
     slot i is inverted through the weight CDF. The textbook inversion is
-    ``searchsorted(cdf, positions)``, but XLA:TPU lowers that binary search
-    to ~log2(N) serialized gather rounds (~15 ms at N=100k — it dominated
-    config #4's step). Instead the inversion is computed scatter-side in
+    ``searchsorted(cdf, positions)``, which the compiler of the hardware
+    this was first built for lowered to ~log2(N) serialized gather rounds
+    (ROADMAP speed item 5 re-measures it on the GPU). Instead the inversion
+    is computed scatter-side in
     O(N): source j's FIRST output slot is ``floor(M·cdf[j-1] - u0) + 1``;
     scatter j there (slot collisions between zero-count sources and the one
     covering source resolve with ``max`` — the covering source always has
@@ -101,8 +102,7 @@ def systematic_resample_rows(
     gather.
 
     ``particles[systematic_resample_indices(...)]`` pays an (M, D) scattered
-    gather — XLA:TPU gathers run ~1e8 elem/s, ~3.5 ms at M=100k (config #4's
-    single largest non-kernel cost). Ownership of output slots is already
+    gather. Ownership of output slots is already
     known scatter-side (see :func:`systematic_invert_cdf_window`): source j
     covers the contiguous slot range ``[floor(g[j-1])+1, floor(g[j])]`` with
     ``g[j] = M*cdf[j] - u0``, so each covered source scatters its ROW into
@@ -181,7 +181,8 @@ def distributed_systematic_resample_rows(
     """Bucketed distributed systematic resampling — call INSIDE shard_map.
 
     The straightforward sharded resampler all-gathers the full (N, D)
-    particle matrix plus the (N,) global CDF every step (O(N) ICI bytes,
+    particle matrix plus the (N,) global CDF every step (O(N) bytes between
+    devices,
     the SURVEY §7 hard-part-6 anti-pattern). This version exchanges only
     what actually crosses shards:
 

@@ -4,9 +4,8 @@ collectives" row and §5 "distributed communication backend".
 The reference is a single-process C++ node (reference
 src/particle_filter.cpp:19-170); its only inter-process hops are ROS DDS
 pub/sub and the one-shot GetMap service (:173-230). This module is the
-TPU-native scale-out story beyond one host, built on the scaling-book
-recipe — pick a mesh, put the high-frequency axes on the fast links, let
-the compiler insert the collectives:
+scale-out story beyond one host — pick a mesh, put the high-frequency
+axes on the fast links, let the compiler insert the collectives:
 
 * **Fleet members are independent filters**, so the fleet axis is the
   ONLY axis that crosses hosts and the per-step computation needs ZERO
@@ -18,7 +17,7 @@ the compiler insert the collectives:
   (jax.distributed) plus small fleet-level summaries — the (F, 3) pose
   table via :func:`gather_poses`, kilobytes per call, invoked at the
   consumer's rate (viz/metrics), not per step.
-* **A single giant filter stays on one host's ICI island**
+* **A single giant filter stays within one host's cards**
   (:class:`~monte_carlo_localization_tpu.parallel.sharded.ShardedParticleFilter`):
   its per-step ``psum``/``all_gather`` would be DCN-latency-bound across
   hosts. Scale particle count within a host, fleet count across hosts.
@@ -26,7 +25,7 @@ the compiler insert the collectives:
 Verification on this repo's single-host hardware: ``python -m
 monte_carlo_localization_tpu.parallel.multihost --dryrun N`` spawns N
 REAL OS processes on the CPU backend, each owning one device, connected
-through ``jax.distributed`` exactly like N TPU hosts over DCN — the
+through ``jax.distributed`` exactly like N hosts over DCN — the
 collective-free fleet step and the pose-table gather execute under the
 true multi-process runtime (tests/test_multihost.py pins it).
 """
@@ -54,10 +53,10 @@ def init_multihost(
 ) -> None:
     """Join the multi-host runtime (idempotent).
 
-    On a real TPU pod each host calls this with no arguments — the TPU
-    runtime supplies the topology. Off-pod (the CPU dryrun, a GPU/DCN
-    cluster) pass the coordinator's ``host:port`` and this process's
-    rank explicitly, mirroring ``jax.distributed.initialize``.
+    Pass the coordinator's ``host:port``, the process count and this
+    process's rank explicitly (the CPU dryrun, a GPU cluster), mirroring
+    ``jax.distributed.initialize``; nothing on a plain GPU host tells JAX
+    of a cluster.
     """
     import jax
 
@@ -278,7 +277,11 @@ def _dryrun_child() -> int:
 def run_dryrun(num_processes: int = 2, timeout_s: float = 300.0) -> None:
     """Spawn ``num_processes`` real OS processes joined via
     jax.distributed (the actual DCN runtime path) and run the multi-host
-    fleet step + pose gather. Raises on any failure."""
+    fleet step + pose gather. Raises on any failure.
+
+    CPU-only by design: every process is pinned to the CPU backend with
+    one device, so the dryrun never opens a card (on a GPU host N
+    processes would each reserve most of its memory)."""
     import socket
 
     with socket.socket() as s:

@@ -130,9 +130,9 @@ class ShardedParticleFilter:
                 build_pallas_likelihood,
             )
 
-            # the kernel runs PER SHARD inside shard_map: its static
+            # the query runs PER SHARD inside shard_map: its static
             # particle count is the local slice, and the (padded) LUT is a
-            # replicated operand every shard DMAs from its own copy of
+            # replicated operand every shard reads from its own copy of
             self.map, pallas_query = build_pallas_likelihood(
                 self.map, np.asarray(self.beam_angles), cfg,
                 n_total // self.num_devices,
@@ -173,7 +173,7 @@ class ShardedParticleFilter:
             def full_gather(_):
                 """All-gather fallback/compat path: fetch the full particle
                 matrix (N x 3) and CDF, invert this shard's slot window.
-                O(N) ICI bytes — the bucketed path's overflow escape and
+                O(N) bytes — the bucketed path's overflow escape and
                 the ``sharded_resample='allgather'`` compatibility mode."""
                 all_particles = jax.lax.all_gather(
                     particles, axis
@@ -181,15 +181,15 @@ class ShardedParticleFilter:
                 all_cdf = jax.lax.all_gather(
                     global_cdf_local, axis
                 ).reshape(-1)
-                # scatter-side CDF inversion — no searchsorted, whose
-                # binary search XLA:TPU lowers to serialized gather rounds
+                # scatter-side CDF inversion, as in the single-device
+                # resampler (ops/resample.py)
                 src = systematic_invert_cdf_window(
                     all_cdf, u0, n_total, shard * n_local, n_local
                 )
                 return all_particles[src]
 
             if cfg.sharded_resample == "bucketed" and self.num_devices > 1:
-                # bucketed ancestor exchange: O(fringe + D) ICI bytes
+                # bucketed ancestor exchange: O(fringe + D) bytes
                 # (SURVEY §7 hard-part 6); bitwise equal to full_gather
                 rows_b, overflow = distributed_systematic_resample_rows(
                     particles, global_cdf_local, u0, n_total, axis,

@@ -2,7 +2,7 @@
 
 The reference keeps all state in memory and loses it on restart
 (SURVEY.md §5: "Checkpoint / resume: None") — re-localization requires a
-manual global or RViz re-init. The TPU engine adds a small npz-based
+manual global or RViz re-init. This engine adds a small npz-based
 checkpoint: particles, log-weights, RNG key state, iteration counter and
 the host tracker anchors, so a node can resume tracking exactly where it
 stopped.

@@ -4,7 +4,7 @@ The reference is an rclcpp node wired to /scan, /odom, /initialpose and
 /clicked_point in, and /pf/viz/inferred_pose, /pf/viz/particles,
 /pf/pose/odom, /map + TF out (reference src/particle_filter.cpp:115-148
 pubs/subs, :857-983 outputs, launch/mcl_launch.py topic remaps). This
-module reproduces that surface with rclpy around the TPU engine: the
+module reproduces that surface with rclpy around the engine: the
 subscriptions feed ``MCLNode.on_scan``/``on_odometry``/initializers, a
 wall timer at ``timer_frequency`` drives ``MCLNode.update()`` (reference
 :155-159), a 5 Hz timer republishes the map (reference :162-165), and the

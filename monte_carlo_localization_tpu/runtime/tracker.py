@@ -4,7 +4,7 @@ The reference anchors a dead-reckoned pose to the last MCL correction and
 advances it with raw odometry deltas at 100-200 Hz while MCL corrections
 arrive at ~6 Hz (reference src/particle_filter.cpp:988-1013, callsites
 :325-352, :781-807). This module reproduces that logic on host (numpy,
-microsecond-scale) — the TPU analogue of the reference's thread split, with
+microsecond-scale) — the analogue of the reference's thread split, with
 the device boundary replacing the ROS topic boundary.
 
 Kept quirks (documented, reference-faithful):

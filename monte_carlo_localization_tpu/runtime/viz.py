@@ -3,7 +3,7 @@
 The reference ships an RViz configuration that displays the occupancy map,
 the particle cloud (PoseArray), the inferred pose, and the TF frame
 (reference rviz/particle_filter.rviz:1-227, wired to /pf/viz/* topics by
-src/particle_filter.cpp:923-983). Headless TPU deployments have no RViz,
+src/particle_filter.cpp:923-983). Headless deployments have no RViz,
 so this module renders the same displays straight to PNG with Pillow:
 
 * occupancy-map underlay with ROS ``map_saver`` shading

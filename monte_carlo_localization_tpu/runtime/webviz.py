@@ -4,7 +4,7 @@ The reference's interactive surface is RViz: a live map + particle cloud
 + inferred pose display, a "2D Pose Estimate" tool publishing to
 ``/initialpose`` and a "Publish Point" tool to ``/clicked_point``
 (reference rviz/particle_filter.rviz:170-194, wired by
-src/particle_filter.cpp:355-379). Headless TPU deployments have no RViz;
+src/particle_filter.cpp:355-379). Headless deployments have no RViz;
 this module serves the same interactions over plain HTTP from the Python
 standard library (no new dependencies):
 

@@ -1,6 +1,6 @@
 """Per-phase performance accounting.
 
-TPU-native analogue of the reference's utils::performance::TimingStats
+Device-side analogue of the reference's utils::performance::TimingStats
 (reference include/particle_filter_cpp/utils.hpp:49-61, src/utils.cpp:93-125):
 same six accumulators and the same printed breakdown (avg ms/iter, achieved
 Hz, per-phase %), plus wall-time helpers for timing jitted dispatches.
@@ -66,7 +66,7 @@ class TimingStats:
 
 class device_trace:
     """Capture a ``jax.profiler`` device trace around a code block — the
-    TPU-native deep dive behind :class:`TimingStats`'s wall-clock
+    device-side deep dive behind :class:`TimingStats`'s wall-clock
     accounting (SURVEY §5 "tracing/profiling"). Writes a TensorBoard/
     Perfetto trace directory::
 

@@ -1,7 +1,7 @@
 """Multi-host (DCN) fleet scale-out dryrun — SURVEY §2.1 cross-device row.
 
 Spawns REAL OS processes joined through ``jax.distributed`` (the same
-runtime path N TPU hosts use over DCN), shards a fleet over the global
+runtime path N hosts use over the data-center network), shards a fleet over the global
 process-major mesh, feeds process-LOCAL scans, steps, and gathers the
 global pose table on every host. The reference has no multi-process
 story at all (single node, DDS pub/sub only — reference
